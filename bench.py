@@ -1,12 +1,17 @@
-"""Benchmark: forced isothermal MHD turbulence, single chip.
+"""Benchmark: forced isothermal MHD turbulence on one device.
 
 The reference's universal metric is µs per step per mesh point
-(src/run.f90:945-951); BASELINE.json's north-star is >1e9 grid-point
-updates/s/chip at 256³ MHD.  vs_baseline = updates_per_sec / 1e9.
+(src/run.f90:945-951); this prints it beside grid-point updates/s, timed
+over scan chunks of steps (the Run driver's between-diagnostics loop).
 
-Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+    python bench.py          # on a GPU; refuses to time anything else
+    python bench.py --cpu    # on the CPU, labelled cpu
+    PC_BENCH=particles python bench.py   # 128^3 gas + 1e6 TSC particles
+
+BENCH_N, BENCH_STEPS, BENCH_CHUNK and BENCH_NPAR override the sizes.
+Prints ONE JSON line naming the device it ran on.
 """
+import argparse
 import json
 import os
 import sys
@@ -14,23 +19,40 @@ import time
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
-def bench_particles():
+
+def _device(cpu):
+    """The device description every result carries; exits unless the run
+    is on a GPU, or on the CPU when ``cpu`` asks for it."""
+    import jax
+    d = jax.devices()[0]
+    want = "cpu" if cpu else "gpu"
+    if d.platform != want:
+        raise SystemExit(f"bench: needs platform {want!r}, JAX found "
+                         f"{d.platform!r}" + ("" if cpu else
+                                              " (use --cpu to time the CPU)"))
+    out = {"platform": d.platform, "kind": d.device_kind,
+           "count": len(jax.devices())}
+    if d.platform == "gpu":
+        sys.path.insert(0, ROOT)
+        from chip_smoke import nvidia_smi
+        out["nvidia_smi"] = nvidia_smi()[0]
+    return out
+
+
+def bench_particles(device):
     """PC_BENCH=particles: dusty-turbulence throughput with npar≈1e6 TSC
     particles + drag back-reaction on the gas (the workload the
     reference's brick load balancing exists for,
     src/particles_mpicomm_blocks.f90)."""
     import jax
-    import jax.numpy as jnp
 
-    platform = jax.devices()[0].platform
-    on_accel = platform not in ("cpu",)
-    n = int(os.environ.get("BENCH_N", 128 if on_accel else 16))
-    npar = int(os.environ.get("BENCH_NPAR",
-                              1_000_000 if on_accel else 10_000))
-    nsteps = int(os.environ.get("BENCH_STEPS", 10 if on_accel else 3))
+    on_gpu = device["platform"] == "gpu"
+    n = int(os.environ.get("BENCH_N", 128 if on_gpu else 16))
+    npar = int(os.environ.get("BENCH_NPAR", 1_000_000 if on_gpu else 10_000))
+    nsteps = int(os.environ.get("BENCH_STEPS", 10 if on_gpu else 3))
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pencil_tpu import (Config, Density, EosIdealGas, GridSpec, Hydro,
                             Model, ParticlesDust, TimeSpec, Viscosity)
 
@@ -56,70 +78,51 @@ def bench_particles():
     assert np.isfinite(np.asarray(state["particles"]["vp"])).all()
     per_s = nsteps * (npar + n ** 3) / elapsed
     print(json.dumps({
-        "metric": f"gas+particle updates/s/chip, {n}^3 hydro + {npar} TSC "
-                  f"drag particles w/ back-reaction, {platform}",
+        "metric": f"gas+particle updates/s, {n}^3 hydro + {npar} TSC "
+                  f"drag particles w/ back-reaction",
         "value": per_s,
         "unit": "updates/s",
-        "vs_baseline": per_s / 1.0e9,
         "steps": nsteps, "npar": npar, "grid": n,
+        "device": device,
     }))
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="single-device benchmark")
+    ap.add_argument("--cpu", action="store_true",
+                    help="time the CPU (results are labelled cpu)")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    from pencil_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    device = _device(args.cpu)
+    if os.environ.get("PC_BENCH", "") == "particles":
+        return bench_particles(device)
+
     import jax
 
-    if os.environ.get("PC_BENCH", "") == "particles":
-        return bench_particles()
-
-    platform = jax.devices()[0].platform
-    on_accel = platform not in ("cpu",)
-    n = int(os.environ.get("BENCH_N", 256 if on_accel else 32))
+    on_gpu = device["platform"] == "gpu"
+    n = int(os.environ.get("BENCH_N", 256 if on_gpu else 32))
+    nsteps = int(os.environ.get("BENCH_STEPS", 20 if on_gpu else 5))
+    chunk = int(os.environ.get("BENCH_CHUNK", 10 if on_gpu else 5))
     nwarm = 3
-    nsteps = int(os.environ.get("BENCH_STEPS", 20 if on_accel else 5))
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from __graft_entry__ import _flagship_cfg
     from pencil_tpu import Model
 
-    cfg = _flagship_cfg(n=n)
-    if os.environ.get("PC_FAKE_RHS"):
-        # memory-floor instrumentation: the fake RHS produces no CFL
-        # signal, so pin dt tiny to keep the state finite
-        import dataclasses
-        cfg = dataclasses.replace(
-            cfg, time=dataclasses.replace(cfg.time, dt=1e-9))
-    model = Model(cfg)
+    model = Model(_flagship_cfg(n=n))
     state = model.init_state(0)
-    step = model.make_step()
-
-    # production inner loop: scan a chunk of steps inside one jit (the run
-    # driver's between-diagnostics pattern) so per-step dispatch amortizes
-    import jax.numpy as jnp
-
-    chunk = int(os.environ.get("BENCH_CHUNK", 10))
-
-    # the hot loop carries the PACKED (stacked-fa) state: the per-step
-    # dict unstack/stack fusions cost ~17% of a fused 256³ step
-    state = model.pack_state(state)
-
-    @jax.jit
-    def steps(state):
-        def body(s, _):
-            return model._local_step(s, model.grid), ()
-        s, _ = jax.lax.scan(body, state, None, length=chunk)
-        return s
-
+    steps = model.make_multi_step(chunk)
     for _ in range(nwarm):
         state = steps(state)
-    jax.block_until_ready(state.get("_fa", state.get("fields")))
+    jax.block_until_ready(state["fields"])
 
     t0 = time.perf_counter()
     for _ in range(nsteps // chunk):
         state = steps(state)
-    jax.block_until_ready(state.get("_fa", state.get("fields")))
+    jax.block_until_ready(state["fields"])
     elapsed = time.perf_counter() - t0
     nsteps = (nsteps // chunk) * chunk
-    state = model.unpack_state(state)
 
     npts = n ** 3
     updates_per_s = nsteps * npts / elapsed
@@ -127,14 +130,14 @@ def main():
     assert np.isfinite(np.asarray(state["fields"]["uu"])).all()
 
     print(json.dumps({
-        "metric": f"grid-point updates/sec/chip, {n}^3 forced isothermal MHD "
-                  f"(8 vars, RK3, 6th-order FD), {platform}",
+        "metric": f"grid-point updates/s, {n}^3 forced isothermal MHD "
+                  f"({model.reg.nvar} vars, RK3, 6th-order FD)",
         "value": updates_per_s,
         "unit": "updates/s",
-        "vs_baseline": updates_per_s / 1.0e9,
         "us_per_point_step": us_per_pt_step,
         "steps": nsteps,
         "grid": n,
+        "device": device,
     }))
 
 

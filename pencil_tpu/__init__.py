@@ -1,6 +1,6 @@
-"""pencil_tpu — TPU-native high-order finite-difference MHD framework.
+"""pencil_tpu — JAX-native high-order finite-difference MHD framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the Pencil Code's capability set
+A from-scratch JAX/XLA re-design of the Pencil Code's capability set
 (compressible MHD + coupled astrophysical PDEs + Lagrangian particles on
 high-order central finite differences with RK3-2N time stepping).  See
 SURVEY.md at the repository root for the structural map of the reference

@@ -3,7 +3,7 @@
 
     python -m pencil_tpu start <rundir>          # build IC, write var.npz
     python -m pencil_tpu run   <rundir> [--nt N] [--sharded]
-    python -m pencil_tpu bench [--n N]
+    python -m pencil_tpu bench [--n N] [--cpu]
     python -m pencil_tpu export <rundir>         # data/ in reference layout
 """
 from __future__ import annotations
@@ -77,7 +77,7 @@ def cmd_bench(args):
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import bench
-    bench.main()
+    bench.main(["--cpu"] if args.cpu else [])
 
 
 def cmd_export(args):
@@ -124,8 +124,10 @@ def main(argv=None):
                    help="ignore existing checkpoint")
     p.set_defaults(fn=cmd_run)
 
-    p = sub.add_parser("bench", help="single-chip benchmark")
+    p = sub.add_parser("bench", help="single-device benchmark")
     p.add_argument("--n", type=int, default=256)
+    p.add_argument("--cpu", action="store_true",
+                   help="time the CPU (results are labelled cpu)")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("export", help="export data/ in reference layout")
@@ -133,6 +135,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_export)
 
     args = ap.parse_args(argv)
+    from .compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

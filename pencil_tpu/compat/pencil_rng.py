@@ -7,7 +7,7 @@ Purpose: golden-test parity.  The reference's sample goldens
 (reference.out) depend on the exact sequence of random draws — initial
 gaussian noise (``src/initcond.f90`` gaunoise_vect), helical-forcing
 wavevector/phase picks (``src/forcing.f90`` fconst_coefs_hel), particle
-placement — so reproducing the generator + draw order lets the TPU port
+placement — so reproducing the generator + draw order lets this port
 match time-series columns at format precision instead of order-of-magnitude
 bands.
 

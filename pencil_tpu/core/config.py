@@ -2,7 +2,7 @@
 
 The reference framework freezes grid size, processor layout and module
 selection at *compile time* (``src/cparam.local`` + ``src/Makefile.local``,
-see reference ``src/cparam.f90:19-80``).  The TPU-native analog is a frozen,
+see reference ``src/cparam.f90:19-80``).  The JAX analog is a frozen,
 hashable dataclass passed as a static argument to ``jax.jit`` — XLA then
 specializes the compiled step exactly like the Fortran build specialized the
 binary, with none of the codegen machinery.
@@ -23,7 +23,7 @@ class GridSpec:
 
     Dimensions are *global*; per-shard sizes are derived from the mesh.
     Axis order everywhere in this package is (x, y, z) with z the minor
-    (TPU lane) axis of the underlying arrays.
+    (contiguous) axis of the underlying arrays.
     """
 
     nx: int = 32
@@ -145,9 +145,6 @@ class Config:
     time: TimeSpec = field(default_factory=TimeSpec)
     modules: tuple = ()
     dtype: str = "float32"
-    # Evaluate the RHS with the fused Pallas megakernel (ops/fused_rhs.py)
-    # instead of the jnp graph; falls back automatically where unsupported.
-    fused: bool = False
     # Boundary conditions per axis: tuples of per-field mnemonic strings,
     # keyed by field name; empty = periodic everywhere (see ops/boundary.py).
     bcx: tuple = ()

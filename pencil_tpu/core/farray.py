@@ -1,9 +1,9 @@
 """Field-array registry: named state slots in a stacked array.
 
-TPU-native analog of reference ``src/farray.f90:99-353``
+JAX-native analog of reference ``src/farray.f90:99-353``
 (``farray_register_pde/auxiliary/global``): physics modules claim named
 slots (scalars or 3-vectors); the registry fixes their order in the stacked
-array ``fa`` of shape (nf, nx, ny, nz) used by the fused RHS, and converts
+array ``fa`` of shape (nf, nx, ny, nz) used by the RHS, and converts
 between that layout and the user-facing dict-of-fields pytree.
 
 Slot kinds (reference mfarray = mvar + maux_com + maux + mglobal,

@@ -1,6 +1,6 @@
 """Grid construction: coordinates + spacing metrics.
 
-TPU-native analog of reference ``src/grid.f90:59-866`` (``construct_grid``).
+JAX-native analog of reference ``src/grid.f90:59-866`` (``construct_grid``).
 The Grid object is a pytree of arrays (1-D ghosted coordinate vectors and
 inverse-spacing metric vectors) so it can be passed through ``jax.jit`` /
 ``shard_map`` and sliced per shard exactly like the field data.

@@ -2,7 +2,7 @@
 ``calc_heatcond_ADI`` called at src/run.f90:715: alternating-direction
 tridiagonal solves for heat conduction stiffer than the explicit CFL).
 
-TPU-native: per axis, solve (I − Δt·χ ∂²_a) f = f sequentially
+JAX-native: per axis, solve (I − Δt·χ ∂²_a) f = f sequentially
 (Douglas–Gunn splitting, 1st-order in the splitting, unconditionally
 stable).  Periodic axes solve exactly in Fourier space (diagonal there);
 non-periodic axes use ``jax.lax.linalg.tridiagonal_solve`` with

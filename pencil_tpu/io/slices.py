@@ -2,7 +2,7 @@
 ``video.in`` lists fields, planes xy/xy2/xz/yz written at dvid cadence to
 ``data/proc*/slice_<field>.<plane>``).
 
-TPU-native: per-plane time series appended into one ``.npz``-per-flush-free
+JAX-native: per-plane time series appended into one ``.npz``-per-flush-free
 npy stack via a simple growing list flushed by the Run driver; files are
 ``data/slice_<field>_<plane>.npz`` holding arrays ``t`` (nt,) and ``data``
 (nt, n1, n2)."""

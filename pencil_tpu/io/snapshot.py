@@ -5,7 +5,7 @@ one-file-per-rank var.dat, and ``src/persist.f90`` tagged persistent records
 — RNG seeds, forcing phase, shear offset — record ids in
 ``src/record_types.h``): a checkpoint must restore the run *bit-exactly*.
 
-TPU-native realization: a single .npz per snapshot holding every state
+JAX-native realization: a single .npz per snapshot holding every state
 field, t/dt/it, and the JAX PRNG key (the persist-record equivalent — all
 stochastic state lives in the key).  Device sharding is reconstructed on
 load by the caller; arrays are stored gathered.

@@ -2,7 +2,7 @@
 + the tracer/fixed-point analysis of ``src/fixed_points.f90``): integrate
 dx/ds = B/|B| from seed points through the periodic box.
 
-TPU-native design: the reference traces lines one at a time per core with
+JAX-native design: the reference traces lines one at a time per core with
 adaptive RK5 and MPI hand-off at processor boundaries; here ALL seeds
 advance together in a single ``lax.scan`` of fixed-step RK4 with periodic
 trilinear interpolation — one (nseeds, 3) tensor op per step, no

@@ -1,6 +1,6 @@
 """Model assembly: compose physics modules into a jitted, shardable step.
 
-This is the TPU-native replacement for the reference's build-time module
+This is the JAX replacement for the reference's build-time module
 selection + the run.x hot path (``src/run.f90`` time loop → ``time_step``
 ``src/timestep.f90:67`` → ``pde`` ``src/equ.f90:24`` → mn-loop RHS).  The
 whole RK substep — ghost fill, derived-field ("pencil") evaluation, module
@@ -83,7 +83,6 @@ class Model:
         if bord is not None and bord.has_quench:
             self._border_quench = jnp.asarray(
                 bord.quench_profile(self.grid, cfg.grid), self.dtype)[None]
-        on_tpu = jax.default_backend() == "tpu"
         self._aux_modules = tuple(
             m for m in self.modules if hasattr(m, "compute_aux"))
         # 'f'/'fg' freeze BCs: df is zeroed on the boundary plane of the
@@ -95,114 +94,6 @@ class Model:
             for side, code in ((0, bc.low), (1, bc.high))
             if code in ("f", "fg") and not cfg.grid.periodic[axis]
         )
-        self._on_tpu = on_tpu
-        self._fused_ok = (
-            cfg.fused
-            and cfg.grid.coords == "cartesian"
-            and cfg.grid.grid_func == ("uniform", "uniform", "uniform")
-            and cfg.grid.nghost == 3
-            # shock is fused-compatible: its comm-aux slot is built by a
-            # jnp pre-pass (_refresh_aux_fa) and rides the ghosted stack
-            # into the kernel tiles; other aux modules stay unfused
-            and all(m.name == "shock" for m in self._aux_modules)
-            and not self._freeze
-            and self.particles is None
-            and cfg.module("border") is None
-            # specials may need host-side context (time, storm tables)
-            and all(m.name in MODULE_ORDER for m in self.modules)
-        )
-        if cfg.fused and not self._fused_ok:
-            # the reference prints its module selection at startup; say
-            # once which RHS path compiled so a 17×-slower silent fallback
-            # can't go unnoticed (round-2 verdict weak #12)
-            import sys
-            print("pencil_tpu: fused=True requested but this configuration "
-                  "is not fused-kernel-compatible (needs uniform cartesian, "
-                  "nghost=3, no particles/freeze-BCs/unknown specials) — "
-                  "using the jnp RHS path", file=sys.stderr)
-
-    def _fused_mode(self, mesh_axis_names, shear_dy, nzl):
-        """Which fused-kernel variant applies: 'wrap' (in-kernel wrapped-DMA
-        ghosts, fully periodic unsharded), 'zroll' (x/y ghosted in HBM, z by
-        circular rolls), 'zghost' (x/y/z ghosted in HBM — the z-sharded /
-        non-periodic-z path), or None → jnp path."""
-        if not self._fused_ok:
-            return None
-        cfg = self.cfg
-        if self._on_tpu and nzl % 128 != 0:
-            # Mosaic DMA slices must be 128-aligned in the lane (z) dim:
-            # every fused variant slabs the state with full-lane DMAs, so
-            # an unaligned local nz falls back to the jnp path on hardware
-            return None
-        names = mesh_axis_names or (None, None, None)
-        z_roll_ok = cfg.grid.periodic[2] and names[2] is None
-        wrap = (z_roll_ok and cfg.grid.periodic[0] and cfg.grid.periodic[1]
-                and names[0] is None and names[1] is None
-                and shear_dy is None and cfg.grid.ny % 8 == 0
-                and cfg.grid.nx >= 4)
-        if wrap:
-            return "wrap"
-        return "zroll" if z_roll_ok else "zghost"
-
-    # ------------------------------------------------------------------
-    def _pack_ok(self) -> bool:
-        """Whether the hot loop may carry the STACKED state (see
-        pack_state): every step-boundary consumer of the per-field dict
-        must be provably absent — any before_timestep hook, any
-        after_timestep hook other than a forcing kick that is guaranteed
-        to land inside the last-substep kernel, particles, point masses,
-        RKF45 — so a packed step never silently skips physics."""
-        cfg = self.cfg
-        if (not self._fused_ok or cfg.time.itorder == 5
-                or self.particles is not None
-                or self.pointmasses is not None
-                or cfg.module("shear") is not None):
-            return False
-        if any(type(m).before_timestep is not ModuleBase.before_timestep
-               for m in self.modules):
-            return False
-        if any(hasattr(m, "step_module_state") for m in self.modules):
-            return False
-        alpha = self.rk[0]
-        # mirrors _local_step's wrap_tail + kick_ok predicates exactly
-        wrap_tail = (len(alpha) >= 2 and not self._aux_modules
-                     and self._fused_mode(None, None, cfg.grid.nz)
-                     == "wrap")
-        forcing = cfg.module("forcing")
-        kick_ok = (forcing is not None and forcing.sequence is None
-                   and forcing.force != 0.0 and "uu" in self.reg.slots
-                   and all(m.name == "forcing" or
-                           not m.after_timestep_active()
-                           for m in self.modules))
-        for m in self.modules:
-            if not m.after_timestep_active():
-                continue
-            if m.name == "forcing" and wrap_tail and kick_ok:
-                continue    # applied in-kernel every step
-            return False
-        return True
-
-    def pack_state(self, state: Dict) -> Dict:
-        """Swap the per-field dict for the stacked ``_fa`` array so a
-        scan-chunked hot loop (bench.py, Run.main_loop between
-        diagnostics) carries ONE array instead of unstack/stack-ing every
-        field each step — the stack concatenate + split fusions cost
-        ~17% of a 256³ fused MHD step.  No-op (returns ``state``
-        unchanged) whenever any hook needs the dict (single-device fused
-        configurations only); unpack_state is always safe to call."""
-        if "_fa" in state or not self._pack_ok():
-            return state
-        st = dict(state)
-        st["_fa"] = self.reg.stack(st.pop("fields"))
-        return st
-
-    def unpack_state(self, state: Dict) -> Dict:
-        """Inverse of pack_state (no-op on an unpacked state)."""
-        if "_fa" not in state:
-            return state
-        st = dict(state)
-        st["fields"] = self.reg.unstack(st.pop("_fa"))
-        return st
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0, overrides: Dict = None) -> Dict:
@@ -408,56 +299,9 @@ class Model:
                 fg = fg.at[self.reg.slice(aname)].set(halo1(interior)[None])
         return fg
 
-    def _refresh_aux_fa(self, fa, grid, mesh_axis_names=None,
-                        mesh_shape=(1, 1, 1), shear_dy=None):
-        """Aux pre-pass for the FUSED path: build the shock profile from
-        the current state with its own ghost exchange and write the
-        interior back into the stacked state, so the megakernel's tiles
-        carry a ready shock slot (the reference also runs the shock build
-        as a separate comm step before the mn-loop, equ.f90:211)."""
-        cfg = self.cfg
-        fg = fill_ghosts(fa[: self.reg.ncom], cfg.grid, self.bc_axes,
-                         self.reg, grid, cfg, self.eos,
-                         mesh_axis_names, mesh_shape, shear_dy=shear_dy)
-        pen = Pencils(fg, grid, self.reg, cfg, self.eos,
-                      mesh_axis_names, mesh_shape)
-        halo1 = self._make_halo1(grid, mesh_axis_names, mesh_shape, shear_dy)
-        for m in self._aux_modules:
-            for aname, interior in m.compute_aux(pen, halo1).items():
-                fa = fa.at[self.reg.slice(aname)].set(interior[None])
-        return fa
-
     def _rhs_inner(self, fa, t, grid, mesh_axis_names, mesh_shape,
                    pstate, shear_dy, pm_xq=None, fargo_mean=None):
         cfg = self.cfg
-        mode = self._fused_mode(mesh_axis_names, shear_dy, fa.shape[3])
-        if mode is not None:
-            if self._aux_modules:
-                fa = self._refresh_aux_fa(fa, grid, mesh_axis_names,
-                                          mesh_shape, shear_dy)
-            fused = self._fused_rhs(tuple(fa.shape[1:]), False,
-                                    mode == "wrap", mode == "zghost")
-            if mode == "wrap":
-                # fully-periodic unsharded: the kernel fetches x/y halos by
-                # wrapped DMAs and rolls z — no HBM ghost pass at all
-                with jax.named_scope("fused_rhs"):
-                    dfa, dt1 = fused(fa[: self.reg.ncom], grid.z)
-                return dfa, dt1, None
-            # 'zroll': ghost x/y in HBM (ppermute across shards when
-            # sharded), z halo built in VMEM by circular rolls (keeps the
-            # lane dim 128-aligned for DMA).  'zghost': ghost all three
-            # axes in HBM — z slabs ride the same ppermute exchange the
-            # jnp path uses, so the megakernel survives a z-sharded mesh
-            # and non-periodic z BCs.  The kernel's sublane-alignment
-            # padding rides the same single jnp.pad via extra_hi.
-            axes = (0, 1) if mode == "zroll" else (0, 1, 2)
-            fg_xy = fill_ghosts(fa[: self.reg.ncom], cfg.grid, self.bc_axes,
-                                self.reg, grid, cfg, self.eos,
-                                mesh_axis_names, mesh_shape, axes=axes,
-                                shear_dy=shear_dy,
-                                extra_hi=(0, fused.ypad, 0))
-            dfa, dt1 = fused(fg_xy, grid.z)
-            return dfa, dt1, None
         fg = fill_ghosts(fa[: self.reg.ncom], cfg.grid, self.bc_axes,
                          self.reg, grid, cfg, self.eos,
                          mesh_axis_names, mesh_shape, shear_dy=shear_dy)
@@ -539,19 +383,6 @@ class Model:
         return dfa, dt1, dpstate
 
     # ------------------------------------------------------------------
-    @functools.lru_cache(maxsize=16)
-    def _fused_rhs(self, local_shape=None, fuse_update=False,
-                   wrap_ghosts=False, z_ghosted=False,
-                   defer_prev=False, last=False, with_kick=False):
-        from .ops.fused_rhs import make_fused_rhs
-        return make_fused_rhs(self, local_shape=local_shape,
-                              fuse_update=fuse_update,
-                              wrap_ghosts=wrap_ghosts,
-                              z_ghosted=z_ghosted,
-                              defer_prev=defer_prev, last=last,
-                              with_kick=with_kick)
-
-    # ------------------------------------------------------------------
     def _apply_freeze(self, dfa, mesh_axis_names, mesh_shape):
         """Zero df on frozen ('f'/'fg') boundary planes, masked to
         domain-edge shards (reference bc_freeze_var_* lfrozen flags)."""
@@ -582,34 +413,30 @@ class Model:
             return self._rkf_step(state, grid, mesh_axis_names, mesh_shape)
         alpha, beta, cstage = self.rk
         reg = self.reg
-        packed = "_fa" in state   # see pack_state: no dict-needing hooks
         gs = cfg.grid
-        if packed:
-            fa = state["_fa"]
-        else:
-            pre = state["fields"]
-            key0 = state["key"]
-            for m in self.modules:
-                if type(m).before_timestep is not ModuleBase.before_timestep:
-                    key0, sub = jax.random.split(key0)
-                    pre = m.before_timestep(pre, grid, cfg, reg, self.eos,
-                                            state["dt"], state["t"], sub,
-                                            it=state["it"])
-            # module-private runtime state (the analog of the reference's
-            # module-level saved variables, e.g. turbpotential's mode
-            # list): stepped once per full step, carried in state["mstate"]
-            mst = dict(state.get("mstate", {}))
-            for m in self.modules:
-                if hasattr(m, "step_module_state") and m.name in mst:
-                    key0, sub = jax.random.split(key0)
-                    mst[m.name], pre = m.step_module_state(
-                        mst[m.name], pre, grid, cfg, reg, self.eos,
-                        state["dt"], state["t"], sub, it=state["it"])
-            state = {**state, "fields": pre, "key": key0}
-            if mst:
-                state["mstate"] = mst
-            fa = reg.stack(state["fields"]) if reg.nf else \
-                jnp.zeros((0, gs.nx, gs.ny, gs.nz), self.dtype)
+        pre = state["fields"]
+        key0 = state["key"]
+        for m in self.modules:
+            if type(m).before_timestep is not ModuleBase.before_timestep:
+                key0, sub = jax.random.split(key0)
+                pre = m.before_timestep(pre, grid, cfg, reg, self.eos,
+                                        state["dt"], state["t"], sub,
+                                        it=state["it"])
+        # module-private runtime state (the analog of the reference's
+        # module-level saved variables, e.g. turbpotential's mode
+        # list): stepped once per full step, carried in state["mstate"]
+        mst = dict(state.get("mstate", {}))
+        for m in self.modules:
+            if hasattr(m, "step_module_state") and m.name in mst:
+                key0, sub = jax.random.split(key0)
+                mst[m.name], pre = m.step_module_state(
+                    mst[m.name], pre, grid, cfg, reg, self.eos,
+                    state["dt"], state["t"], sub, it=state["it"])
+        state = {**state, "fields": pre, "key": key0}
+        if mst:
+            state["mstate"] = mst
+        fa = reg.stack(state["fields"]) if reg.nf else \
+            jnp.zeros((0, gs.nx, gs.ny, gs.nz), self.dtype)
         fa_begin = fa
         nvar = reg.nvar
         df = jnp.zeros((nvar,) + fa.shape[1:], fa.dtype)
@@ -631,7 +458,7 @@ class Model:
         hyd_m = cfg.module("hydro")
         fargo_uum = None
         if (hyd_m is not None and getattr(hyd_m, "lfargo_advection", False)
-                and cfg.grid.coords == "cylindrical" and not packed):
+                and cfg.grid.coords == "cylindrical"):
             if mesh_axis_names and mesh_axis_names[1] is not None \
                     and mesh_shape[1] > 1:
                 raise NotImplementedError("FARGO with sharded y axis")
@@ -647,87 +474,8 @@ class Model:
         else:
             pm = None
             xc = vc = dxq = dvq = None
-        use_fused_update = (self._fused_ok and pstate is None and not safi
-                            and pm is None)
-        # wrap-mode tail chain: substep 1's axpy is deferred into substep
-        # 2's kernel (f1 rebuilt in VMEM from raw f0 + df1), the last
-        # substep skips its dead df write, and the forcing kick lands
-        # in-kernel — three full-field HBM round trips saved per step
-        forcing = cfg.module("forcing")
-        kick_ok = (forcing is not None and forcing.sequence is None
-                   and forcing.force != 0.0 and "uu" in reg.slots
-                   and all(m.name == "forcing" or
-                           not m.after_timestep_active()
-                           for m in self.modules))
-        wrap_tail = (use_fused_update and len(alpha) >= 2
-                     and not self._aux_modules
-                     and self._fused_mode(mesh_axis_names, None,
-                                          fa.shape[3]) == "wrap")
-        kicked_in_kernel = False
-
         for isub in range(len(alpha)):
             t_sub = t0 + cstage[isub] * dt
-            shear = cfg.module("shear")
-            sdy0 = shear.deltay(t_sub, cfg.grid.Lx, cfg.grid.Ly) \
-                if shear else None
-            fmode = (self._fused_mode(mesh_axis_names, sdy0, fa.shape[3])
-                     if use_fused_update else None)
-            if wrap_tail and isub > 0:
-                is_last = isub == len(alpha) - 1
-                defer = isub == 1
-                kick_now = is_last and kick_ok
-                kick = None
-                if kick_now:
-                    k = state["key"]
-                    sub_f = None
-                    for m in self.modules:
-                        k, sub = jax.random.split(k)
-                        if m.name == "forcing":
-                            sub_f = sub
-                    kick = forcing.kick_coeffs(sub_f, dt, cfg, self.eos,
-                                               fa.dtype)
-                    kicked_in_kernel = True
-                fused = self._fused_rhs(tuple(fa.shape[1:]), True, True,
-                                        False, defer, is_last, kick_now)
-                out = fused(fa[: reg.ncom], grid.z, df,
-                            alpha[isub], beta[isub] * dt,
-                            cprev=(beta[isub - 1] * dt if defer else 0.0),
-                            kick=kick)
-                fa_new = out if is_last else out[1]
-                if not is_last:
-                    df = out[0]
-                if reg.nf > nvar:
-                    fa = jnp.concatenate([fa_new, fa[nvar:]], axis=0)
-                else:
-                    fa = fa_new
-                continue
-            if fmode is not None and isub > 0:
-                # substeps 2+: RHS + 2N-RK combine + state update in ONE
-                # Pallas kernel (dt is already known from substep 1)
-                sdy = sdy0
-                if self._aux_modules:
-                    fa = self._refresh_aux_fa(fa, grid, mesh_axis_names,
-                                              mesh_shape, sdy)
-                mode = fmode
-                fused = self._fused_rhs(tuple(fa.shape[1:]), True,
-                                        mode == "wrap", mode == "zghost")
-                if mode == "wrap":
-                    fg_xy = fa[: reg.ncom]
-                else:
-                    axes = (0, 1) if mode == "zroll" else (0, 1, 2)
-                    fg_xy = fill_ghosts(fa[: reg.ncom], cfg.grid,
-                                        self.bc_axes, reg, grid, cfg,
-                                        self.eos, mesh_axis_names,
-                                        mesh_shape, axes=axes,
-                                        shear_dy=sdy,
-                                        extra_hi=(0, fused.ypad, 0))
-                df, fa_new, _ = fused(fg_xy, grid.z, df,
-                                      alpha[isub], beta[isub] * dt)
-                if reg.nf > nvar:
-                    fa = jnp.concatenate([fa_new, fa[nvar:]], axis=0)
-                else:
-                    fa = fa_new
-                continue
             cur_xq = cart_to_polar(xc, vc, cfg.grid.coords)[0] \
                 if pm is not None else None
             dfa, dt1, dp = self.rhs(fa, grid, t_sub, mesh_axis_names,
@@ -768,10 +516,6 @@ class Model:
                         if (cfg.grid.nx, cfg.grid.ny, cfg.grid.nz)[a2] > 1)
                     df = df + bordm.border_diff * (1.0 - bprof) * d6 \
                         / (beta[isub] * dt)
-            if wrap_tail and isub == 0:
-                # substep 1's state update happens inside substep 2's
-                # deferred-update kernel — keep f0 and df1 as-is
-                continue
             fa = fa.at[:nvar].add(beta[isub] * dt * df)
             for m in self.modules:
                 # per-substep interior surgery after the RK update — e.g.
@@ -908,27 +652,10 @@ class Model:
             else:
                 fa = pfa
         t1 = t0 + dt
-        if packed:
-            # pack_state guaranteed no dict-needing hooks fire; consume
-            # the same RNG splits so packed/unpacked streams are identical
-            key = state["key"]
-            for m in self.modules:
-                key, _sub = jax.random.split(key)
-            return {
-                "_fa": fa,
-                "t": t1,
-                "dt": dt,
-                "it": state["it"] + 1,
-                "key": key,
-            }
         fields = reg.unstack(fa)
         key = state["key"]
         for m in self.modules:
             key, sub = jax.random.split(key)
-            if kicked_in_kernel and m.name == "forcing":
-                continue    # kick already applied inside the last-substep
-                # kernel with THIS sub-key (split still consumed above so
-                # the RNG stream matches the out-of-kernel path exactly)
             fields = m.after_timestep(fields, grid, cfg, reg, self.eos,
                                       dt, t1, sub, it=state["it"])
         out = {
@@ -1143,14 +870,10 @@ class Model:
 
             @jax.jit
             def stepk(state):
-                # carry the stacked fa across the scan (one stack/unstack
-                # per CHUNK instead of per step) — no-op when ineligible
-                state = self.pack_state(state)
-
                 def body(s, _):
                     return self._local_step(s, grid), ()
                 s, _ = jax.lax.scan(body, state, None, length=k)
-                return self.unpack_state(s)
+                return s
 
             return stepk
 
@@ -1199,6 +922,15 @@ class Model:
             else:
                 out["particles"] = {"xp": P(), "vp": P()}
         return out
+
+    def shard_state(self, state: Dict, mesh: Mesh) -> Dict:
+        """Place ``state`` on ``mesh`` with the layout of state_pspecs(), so
+        a sharded run does not start with the whole state on one device."""
+        from jax.sharding import NamedSharding
+        shardings = jax.tree_util.tree_map(
+            lambda p: NamedSharding(mesh, p), self.state_pspecs(),
+            is_leaf=lambda x: isinstance(x, P))
+        return jax.device_put(state, shardings)
 
     def _make_sharded_callable(self, mesh: Mesh):
         """The un-jitted shard_map'ed single step (composable under scan)."""

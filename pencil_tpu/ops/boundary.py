@@ -1,6 +1,6 @@
 """Boundary conditions on ghost zones.
 
-TPU-native analog of reference ``src/boundcond.f90`` (``boundconds_x/y/z``
+JAX-native analog of reference ``src/boundcond.f90`` (``boundconds_x/y/z``
 dispatch at :735-861/:1085/:1283).  The reference has 476 BC case labels,
 most of which are x/y/z triplications of the same formula; here each
 condition is ONE axis-generic function, and the registry covers every

@@ -2,7 +2,7 @@
 ``inverse_laplacian_fft`` :85-253 over ``src/fourier_fftpack.f90``'s
 transpose-based parallel FFT).
 
-TPU-native: ``jnp.fft`` on the (possibly sharded) global array — under jit
+JAX-native: ``jnp.fft`` on the (possibly sharded) global array — under jit
 with sharded inputs XLA inserts the all-to-all transposes that the
 reference hand-codes in ``transp`` (src/mpicomm.f90:5298).  Solves
 ∇²φ = f in a fully periodic box; the k=0 mode is projected out (φ defined

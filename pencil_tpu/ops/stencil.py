@@ -1,6 +1,6 @@
 """High-order central finite-difference stencil operators.
 
-TPU-native analog of reference ``src/deriv.f90`` (``der_main`` at :89,
+JAX analog of reference ``src/deriv.f90`` (``der_main`` at :89,
 ``der2_main`` at :474, der3..der6, ``der6_upwind``, ``derij``).  Instead of
 hard-coding the classical coefficient tables, we *derive* them at trace time
 from the Taylor/Vandermonde system (Fornberg weights) for any stencil width —
@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence
 
 import jax
 import jax.numpy as jnp
@@ -57,78 +56,6 @@ def _axis_index(fg: jnp.ndarray, axis: int) -> int:
     return fg.ndim - 3 + axis
 
 
-import os
-
-# PC_ZMM=1: last-axis (lane-dim) stencils as banded matmuls on the MXU.
-# Measured on v5e at 256³ MHD this LOSES 3× vs lane rolls (the per-tile
-# matmuls are M≈70 slivers that underfill the 128×128 array, and f32
-# accuracy costs 3-6 bf16 passes), so rolls stay the default; the path is
-# kept for experimentation on parts with larger arithmetic intensity.
-@functools.lru_cache(maxsize=1)
-def _zmm_enabled():
-    if os.environ.get("PC_ZMM", "0") in ("0", ""):
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def _band_matrix(m: int, offsets: tuple, weights: tuple, wrap: bool,
-                 g: int, dtype_str: str):
-    """(m, n) banded stencil matrix: out[..., j] = Σ_o w_o · f[..., j+o].
-
-    Built IN-TRACE from iota comparisons (not as a closed-over ndarray):
-    Pallas kernels reject captured array constants, while XLA constant-
-    folds the identical expression outside kernels.  All inputs are
-    static, so each distinct matrix is CSE'd to one materialization."""
-    n = m if wrap else m - 2 * g
-    dt = jnp.dtype(dtype_str)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (m, n), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (m, n), 1)
-    D = None
-    for o, w in zip(offsets, weights):
-        if w == 0.0:
-            continue
-        src = (cols + o) % m if wrap else g + cols + o
-        t = jnp.asarray(w, dt) * (rows == src).astype(dt)
-        D = t if D is None else D + t
-    return D
-
-
-def _stencil_axis(fg: jnp.ndarray, axis: int, weights: Sequence[float],
-                  offsets: Sequence[int], wrap: bool = False,
-                  g: int = NGHOST) -> jnp.ndarray:
-    """Weighted sum of shifted slices along one spatial axis; m → m-2*NGHOST.
-
-    With ``wrap=True`` the axis is treated as periodic WITHOUT ghost zones:
-    shifts become circular rolls and the extent is unchanged (used by the
-    fused kernel for the full-extent periodic z axis — no halo, no copy).
-    """
-    ax = _axis_index(fg, axis)
-    m = fg.shape[ax]
-    if ax == fg.ndim - 1 and m >= 8 and _zmm_enabled():
-        D = _band_matrix(m, tuple(offsets), tuple(weights), wrap, g,
-                         str(fg.dtype))
-        return jnp.matmul(fg, D, precision=jax.lax.Precision.HIGHEST)
-    out = None
-    if wrap:
-        for o, w in zip(offsets, weights):
-            if w == 0.0:
-                continue
-            s = jnp.roll(fg, -o, axis=ax) if o != 0 else fg
-            term = w * s if w != 1.0 else s
-            out = term if out is None else out + term
-        return out if out is not None else jnp.zeros_like(fg)
-    n = m - 2 * g
-    for o, w in zip(offsets, weights):
-        if w == 0.0:
-            continue
-        s = jax.lax.slice_in_dim(fg, g + o, g + o + n, axis=ax)
-        term = w * s if w != 1.0 else s
-        out = term if out is None else out + term
-    if out is None:
-        out = jnp.zeros(fg.shape[:ax] + (n,) + fg.shape[ax + 1:], fg.dtype)
-    return out
-
-
 def i(arr: jnp.ndarray, axes=(0, 1, 2), g: int = NGHOST) -> jnp.ndarray:
     """Crop ghost zones along the given spatial axes (interior view).
 
@@ -142,8 +69,7 @@ def i(arr: jnp.ndarray, axes=(0, 1, 2), g: int = NGHOST) -> jnp.ndarray:
     return arr[tuple(idx)]
 
 
-def _stencil_axis_paired(fg, axis, weights, offsets, parity, wrap=False,
-                         g=NGHOST):
+def _stencil_axis_paired(fg, axis, weights, offsets, parity, g=NGHOST):
     """Central stencil evaluated in PAIRED form so constants cancel
     EXACTLY in floating point (the reference's
     45*(f(+1)−f(−1)) − 9*(f(+2)−f(−2)) + ... arrangement,
@@ -156,20 +82,10 @@ def _stencil_axis_paired(fg, axis, weights, offsets, parity, wrap=False,
     which, scaled by dx⁻ⁿ, becomes a spurious uniform force on small
     boxes (dx_1 ~ 10³ broke the streaming-instability equilibrium)."""
     ax = _axis_index(fg, axis)
-    m = fg.shape[ax]
-    if ax == fg.ndim - 1 and m >= 8 and _zmm_enabled():
-        D = _band_matrix(m, tuple(offsets), tuple(weights), wrap, g,
-                         str(fg.dtype))
-        return jnp.matmul(fg, D, precision=jax.lax.Precision.HIGHEST)
+    n = fg.shape[ax] - 2 * g
     pos = [(o, w) for o, w in zip(offsets, weights) if o > 0 and w != 0.0]
 
     def shift(o):
-        if wrap:
-            # o == 0 must NOT go through jnp.roll: Pallas/mosaic lowers a
-            # zero-shift roll to a concat with a zero-size slice, which is
-            # invalid MLIR ("vector types must have positive sizes").
-            return fg if o == 0 else jnp.roll(fg, -o, axis=ax)
-        n = m - 2 * g
         return jax.lax.slice_in_dim(fg, g + o, g + o + n, axis=ax)
 
     out = None
@@ -184,7 +100,7 @@ def _stencil_axis_paired(fg, axis, weights, offsets, parity, wrap=False,
     return out
 
 
-def _der_n(fg, axis, inv_d, deriv, accuracy, wrap=False, g=NGHOST):
+def _der_n(fg, axis, inv_d, deriv, accuracy, g=NGHOST):
     """Width-generic central derivative: the full (2g+1)-point stencil of
     the ghost zone is used, so accuracy follows the configured ghost width
     (g=3 → 6th order like src/deriv.f90; g=4 → 8th order deriv_8th.f90;
@@ -194,8 +110,7 @@ def _der_n(fg, axis, inv_d, deriv, accuracy, wrap=False, g=NGHOST):
         raise ValueError(f"stencil halfwidth {hw} exceeds nghost={g}")
     offs = central_offsets(g)
     w = fd_weights(offs, deriv)
-    out = _stencil_axis_paired(fg, axis, w, offs, deriv % 2, wrap=wrap,
-                               g=g)
+    out = _stencil_axis_paired(fg, axis, w, offs, deriv % 2, g=g)
     if inv_d is not None:
         out = out * _pow_scale(inv_d, deriv)
     return out
@@ -207,20 +122,20 @@ def _pow_scale(inv_d, p):
     return inv_d ** p
 
 
-def der(fg, axis, inv_d=None, wrap=False, g=NGHOST):
+def der(fg, axis, inv_d=None, g=NGHOST):
     """1st derivative, 6th-order central (reference der_main, deriv.f90:89)."""
-    return _der_n(fg, axis, inv_d, 1, 6, wrap=wrap, g=g)
+    return _der_n(fg, axis, inv_d, 1, 6, g=g)
 
 
-def der2(fg, axis, inv_d=None, tilde=None, wrap=False, g=NGHOST):
+def der2(fg, axis, inv_d=None, tilde=None, g=NGHOST):
     """2nd derivative, 6th-order central (reference der2_main, deriv.f90:474).
 
     ``tilde`` is the nonuniform-grid metric −x''/x'² ; when given, adds the
     first-derivative correction term for stretched grids.
     """
-    out = _der_n(fg, axis, inv_d, 2, 6, wrap=wrap, g=g)
+    out = _der_n(fg, axis, inv_d, 2, 6, g=g)
     if tilde is not None:
-        out = out + tilde * der(fg, axis, inv_d, wrap=wrap, g=g)
+        out = out + tilde * der(fg, axis, inv_d, g=g)
     return out
 
 
@@ -236,9 +151,9 @@ def der5(fg, axis, inv_d=None):
     return _der_n(fg, axis, inv_d, 5, 2)
 
 
-def der6(fg, axis, inv_d=None, wrap=False, g=NGHOST):
+def der6(fg, axis, inv_d=None, g=NGHOST):
     """6th derivative on the 7-pt stencil (used by del6 hyperdiffusion)."""
-    return _der_n(fg, axis, inv_d, 6, 2, wrap=wrap, g=g)
+    return _der_n(fg, axis, inv_d, 6, 2, g=g)
 
 
 _UPWIND_W = None
@@ -274,7 +189,7 @@ def derij(fg, ax1, ax2, inv1=None, inv2=None):
     return out
 
 
-def derij_bidiag(fg, ax1, ax2, inv1=None, inv2=None, wrap2=False):
+def derij_bidiag(fg, ax1, ax2, inv1=None, inv2=None):
     """Mixed second derivative, 12-point bidiagonal scheme — the
     reference DEFAULT (``derij_main``, deriv.f90:1376-1420,
     ``lbidiagonal_derij=.true.`` cdata.f90:568): 6th-order using only the
@@ -285,40 +200,14 @@ def derij_bidiag(fg, ax1, ax2, inv1=None, inv2=None, wrap2=False):
     a2 = _axis_index(fg, ax2)
     n1 = fg.shape[a1] - 2 * NGHOST
     n2 = fg.shape[a2] - 2 * NGHOST
-    m2 = fg.shape[a2]
     out = None
-    if a2 == fg.ndim - 1 and m2 >= 8 and _zmm_enabled():
-        # group the four diagonal terms per offset by their z-shift:
-        #   S(+o,+o) − S(−o,+o) + S(−o,−o) − S(+o,−o)
-        #     = B_o @ [R(+o) − R(−o)],  B_o = Sx(+o) − Sx(−o)
-        # so the lane-dim shifts become ONE banded circulant (or sliced)
-        # matmul per offset on the MXU instead of two lane rotations.
-        for o, c in zip((1, 2, 3),
-                        (270.0 / 720.0, -27.0 / 720.0, 2.0 / 720.0)):
-            hi = jax.lax.slice_in_dim(fg, NGHOST + o, NGHOST + o + n1,
-                                      axis=a1)
-            lo = jax.lax.slice_in_dim(fg, NGHOST - o, NGHOST - o + n1,
-                                      axis=a1)
-            B = hi - lo
-            C = _band_matrix(m2, (o, -o), (1.0, -1.0), wrap2, NGHOST,
-                             str(fg.dtype))
-            t = c * jnp.matmul(B, C, precision=jax.lax.Precision.HIGHEST)
-            out = t if out is None else out + t
-        if inv1 is not None:
-            out = out * inv1
-        if inv2 is not None:
-            out = out * inv2
-        return out
     for o, c in zip((1, 2, 3), (270.0 / 720.0, -27.0 / 720.0, 2.0 / 720.0)):
         for s1, s2, sgn in ((o, o, 1.0), (-o, o, -1.0),
                             (-o, -o, 1.0), (o, -o, -1.0)):
             sl = jax.lax.slice_in_dim(fg, NGHOST + s1, NGHOST + s1 + n1,
                                       axis=a1)
-            if wrap2:
-                sl = jnp.roll(sl, -s2, axis=a2)
-            else:
-                sl = jax.lax.slice_in_dim(sl, NGHOST + s2, NGHOST + s2 + n2,
-                                          axis=a2)
+            sl = jax.lax.slice_in_dim(sl, NGHOST + s2, NGHOST + s2 + n2,
+                                      axis=a2)
             t = (sgn * c) * sl
             out = t if out is None else out + t
     if inv1 is not None:

@@ -1,6 +1,6 @@
-"""Ghost-zone fill: local wrap or ICI neighbor exchange.
+"""Ghost-zone fill: local wrap or device-to-device neighbor exchange.
 
-TPU-native analog of reference ``src/mpicomm.f90`` halo machinery
+JAX analog of reference ``src/mpicomm.f90`` halo machinery
 (``initiate_isendrcv_bdry`` :1325, ``finalize_isendrcv_bdry`` :1704) and
 ``src/boundcond.f90`` ``update_ghosts`` (:60-138).  The MPI ISend/IRecv of
 y/z slabs + corner strips collapses to at most six ``jax.lax.ppermute``
@@ -23,20 +23,14 @@ from ..ops.boundary import apply_axis_bcs
 from ..ops.stencil import NGHOST
 
 
-def _wrap_axis(fg: jnp.ndarray, axis: int, extra: int = 0,
-               g: int = NGHOST) -> jnp.ndarray:
-    """Periodic fill of one spatial axis from the local interior.
-
-    ``extra`` = alignment padding beyond the high ghost zone (ignored by
-    the wrap; the fused kernel's sublane-aligned DMA slabs read into it).
-    """
+def _wrap_axis(fg: jnp.ndarray, axis: int, g: int = NGHOST) -> jnp.ndarray:
+    """Periodic fill of one spatial axis from the local interior."""
     ax = fg.ndim - 3 + axis
-    m = fg.shape[ax] - extra
+    m = fg.shape[ax]
     n = m - 2 * g
     if n < g:
         # short/degenerate axis (e.g. ny=1): a slab copy would read other
         # ghost cells — tile the interior periodically instead
-        assert extra == 0, "alignment padding on a degenerate axis"
         import numpy as np
         idx = g + np.mod(np.arange(m) - g, n)
         return jnp.take(fg, jnp.asarray(idx), axis=ax)
@@ -48,10 +42,10 @@ def _wrap_axis(fg: jnp.ndarray, axis: int, extra: int = 0,
 
 
 def _exchange_axis(fg: jnp.ndarray, axis: int, axis_name: str, psize: int,
-                   extra: int = 0, g: int = NGHOST) -> jnp.ndarray:
+                   g: int = NGHOST) -> jnp.ndarray:
     """ppermute ring exchange of ghost slabs along one sharded mesh axis."""
     ax = fg.ndim - 3 + axis
-    m = fg.shape[ax] - extra
+    m = fg.shape[ax]
     hi_int = jax.lax.slice_in_dim(fg, m - 2 * g, m - g, axis=ax)
     lo_int = jax.lax.slice_in_dim(fg, g, 2 * g, axis=ax)
     fwd = [(i, (i + 1) % psize) for i in range(psize)]
@@ -74,38 +68,30 @@ def fill_ghosts(
     eos=None,
     mesh_axis_names: Optional[Tuple[Optional[str], ...]] = None,
     mesh_shape: Tuple[int, int, int] = (1, 1, 1),
-    axes: Tuple[int, ...] = (0, 1, 2),
     shear_dy=None,
-    extra_hi: Tuple[int, int, int] = (0, 0, 0),
 ) -> jnp.ndarray:
     """Interior stack (nc, nx, ny, nz) → ghosted stack (nc, mx, my, mz).
 
     When called inside ``shard_map``, ``mesh_axis_names`` gives the mesh
     axis name per spatial axis (None = unsharded) and ``mesh_shape`` the
     static device counts; physical BCs are then masked to domain-edge
-    shards via ``lax.axis_index``.  ``axes`` restricts which spatial axes
-    get ghosted (the fused-RHS path keeps z unghosted in HBM and builds the
-    z halo in VMEM for lane alignment).
+    shards via ``lax.axis_index``.
     """
     g = spec.nghost
-    pad = [(0, 0)] * (fa.ndim - 3) + [
-        (g, g + extra_hi[a]) if a in axes else (0, 0) for a in range(3)
-    ]
+    pad = [(0, 0)] * (fa.ndim - 3) + [(g, g)] * 3
     fg = jnp.pad(fa, pad)
-    for axis in axes:
-        if extra_hi[axis]:
-            assert spec.periodic[axis], "extra_hi only on periodic axes"
+    for axis in range(3):
         name = mesh_axis_names[axis] if mesh_axis_names else None
         psize = mesh_shape[axis]
         if name is not None and psize > 1:
-            fg = _exchange_axis(fg, axis, name, psize, extra_hi[axis], g)
+            fg = _exchange_axis(fg, axis, name, psize, g)
             if not spec.periodic[axis]:
                 idx = jax.lax.axis_index(name)
                 edge = (idx == 0, idx == psize - 1)
                 fg = apply_axis_bcs(fg, axis, bc_axes[axis], reg, grid, cfg,
                                     eos, edge_mask=edge)
         else:
-            fg = _wrap_axis(fg, axis, extra_hi[axis], g)
+            fg = _wrap_axis(fg, axis, g)
             if not spec.periodic[axis]:
                 fg = apply_axis_bcs(fg, axis, bc_axes[axis], reg, grid, cfg,
                                     eos, edge_mask=(True, True))

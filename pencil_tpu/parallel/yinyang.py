@@ -8,7 +8,7 @@ jointly cover the full sphere with no pole singularity.  Each patch's
 (biquadratic in the reference; bilinear here), with vector components
 rotated between the two bases.
 
-TPU-native realization: the two patches ride a leading axis of size 2 on
+JAX-native realization: the two patches ride a leading axis of size 2 on
 every field (one batched program, not two programs), and the reference's
 precomputed coefficient tables + rank-to-rank exchange collapse to
 STATIC gather indices/weights built once at setup — the ghost exchange

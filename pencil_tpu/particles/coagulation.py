@@ -14,7 +14,7 @@ number accepts the collision when u < dt·τ⁻¹, and the outcome updates
 radii/number densities conserving each swarm's mass density
 (coagulation_fragmentation :879).
 
-TPU-native design: instead of the reference's shepherd/neighbour linked
+JAX-native design: instead of the reference's shepherd/neighbour linked
 lists (inherently sequential per cell), one jitted sweep evaluates ALL
 pairs masked by same-cell membership — an O(N²) bitmask einsum that
 vectorises onto the VPU; collisions within a step sample the step-start

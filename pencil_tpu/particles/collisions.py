@@ -5,7 +5,7 @@ post-collision velocities conserve momentum exactly and scale the
 relative speed by the restitution coefficient with an isotropically
 random scattering direction).
 
-TPU-native: particles are sorted by flattened cell id (jax.lax.sort),
+JAX-native: particles are sorted by flattened cell id (jax.lax.sort),
 consecutive same-cell entries form candidate pairs, acceptance and
 scattering angles are drawn per pair, and velocity updates scatter back
 by sorted index — one fixed-shape pass, no per-cell lists."""

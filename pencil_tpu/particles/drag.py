@@ -15,7 +15,7 @@ Coriolis force and shear acceleration are handed over from hydro/shear
 (src/hydro.f90:1122, src/shear.f90:160) — configure Hydro with Omega=0
 and the Shear module detects the handover itself.
 
-TPU-native realization: the per-cell "list of particles" becomes a
+JAX-native realization: the per-cell "list of particles" becomes a
 segment-sum over flattened cell indices; the 3^d TSC sub-particle cloud
 is a static python loop of d≤3 offset combinations; all per-cell
 coefficients are elementwise arrays.  One fully-vectorized pass, no

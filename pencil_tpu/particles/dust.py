@@ -1050,7 +1050,7 @@ class ParticlesDust(ModuleBase):
 @dataclass(frozen=True)
 class ParticlesDustSharded(ParticlesDust):
     """Scalable variant: particle state SHARDED over the device mesh in
-    fixed-size per-shard buffers with migration — the TPU-native analog of
+    fixed-size per-shard buffers with migration — the JAX-native analog of
     the reference's block/brick decomposition + rank-to-rank migration
     (``src/particles_mpicomm_blocks.f90``; npar_mig overflow semantics).
 

@@ -2,7 +2,7 @@
 selection at :54-90, interpolation of gas quantities to particles and
 deposition of particle fields to the grid).
 
-TPU-native: interpolation = vectorized gather from the *ghosted* gas stack
+JAX-native: interpolation = vectorized gather from the *ghosted* gas stack
 (ghost zones make periodic wrap free); deposition = scatter-add onto a
 ghosted accumulator followed by a ghost-fold (the adjoint of the periodic
 ghost fill).  All shapes static; indices clipped to the ghosted extents.
@@ -82,8 +82,8 @@ def interpolate(fields, xp, spec, scheme="tsc", origin=None, mask=None):
         i0 = jnp.clip(i0, 0, mx_ - 3)
         j0 = jnp.clip(j0, 0, my_ - 3)
         k0 = jnp.clip(k0, 0, mz_ - 3)
-    # ONE combined gather for all K³ cloud cells (27 separate gathers
-    # serialize badly on TPU), then the weighted reduction on registers
+    # ONE combined gather for all K³ cloud cells instead of 27 separate
+    # gathers, then the weighted reduction
     Ka, Kb, Kc = len(wx), len(wy), len(wz)
     flat0 = (i0 * my_ + j0) * mz_ + k0
     ff = fields.reshape(fields.shape[0], -1)
@@ -140,8 +140,7 @@ def deposit(values, xp, spec, shape, scheme="tsc", dtype=jnp.float32,
         i0 = jnp.clip(i0, 0, mx - 3)
         j0 = jnp.clip(j0, 0, my - 3)
         k0 = jnp.clip(k0, 0, mz - 3)
-    # TPU scatter-adds with duplicate indices serialize: 27 separate
-    # scatters cost ~30× one.  Deposit every cloud cell's contribution
+    # One scatter instead of 27: deposit every cloud cell's contribution
     # as a CHANNEL at the particle's anchor cell in ONE scatter, then
     # realign channels with K³ cheap grid rolls (anchor+offset stays
     # inside the ghost margin, so the circular roll never wraps mass).

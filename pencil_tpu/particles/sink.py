@@ -4,7 +4,7 @@ that exceed a density threshold become sinks (``create_particles_sink``
 accrete every particle that comes within ``sink_radius``
 (:600+ remove_particles_sink), conserving mass and momentum.
 
-TPU-native design: sinks are flagged by a positive ``srad`` per-particle
+JAX-native design: sinks are flagged by a positive ``srad`` per-particle
 field (the reference tags them with negative ``iaps``); both creation and
 accretion are vectorised masked updates on fixed-size buffers — accreted
 particles are deactivated (``active=False``) rather than compacted, which

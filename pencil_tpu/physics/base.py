@@ -99,10 +99,3 @@ class ModuleBase:
         run.f90:729 addforce and X_after_timestep hooks).  ``it`` is the
         0-based index of the step just completed (traced int32)."""
         return state
-
-    def after_timestep_active(self) -> bool:
-        """Whether after_timestep can modify the state under THIS
-        configuration.  Modules whose hook is gated on an option flag
-        override this so the packed-state fast path (Model.pack_state)
-        isn't disabled by a provably inert hook."""
-        return type(self).after_timestep is not ModuleBase.after_timestep

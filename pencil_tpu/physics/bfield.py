@@ -28,8 +28,8 @@ _OTHER_AXES = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 def _der_int(pen, arr_g, axis):
     """Interior derivative of an explicitly ghosted array, mirroring
     Pencils.d for non-slot quantities."""
-    out = st.der(arr_g, axis, None, wrap=pen._wr(axis), g=pen._g)
-    return interior(out, pen._crop(_OTHER_AXES[axis]),
+    out = st.der(arr_g, axis, None, g=pen._g)
+    return interior(out, _OTHER_AXES[axis],
                     g=pen._g) * pen._inv(axis)
 
 
@@ -79,16 +79,15 @@ class Bfield(ModuleBase):
             # communicated ghosted J; −∇×(ηµ0J) = η∇²B for constant η and
             # ∇·B = 0, which needs no second halo exchange
             lap = jnp.stack([
-                sum(interior(st.der2(pen._gh("bb")[c], a, None,
-                                     wrap=pen._wr(a), g=pen._g),
-                             pen._crop(_OTHER_AXES[a]), g=pen._g)
+                sum(interior(st.der2(pen._gh("bb")[c], a, None, g=pen._g),
+                             _OTHER_AXES[a], g=pen._g)
                     * pen._inv(a) ** 2 for a in range(3))
                 for c in range(3)])
             accumulate(df, "bb", self.eta * lap)
             ts.diffus(self.eta)
         if self.llorentzforce and "uu" in pen.reg.slots:
             jj = _curl_int(pen, pen._gh("bb")) / self.mu0
-            b_int = interior(bg, pen._crop((0, 1, 2)), g=pen._g)
+            b_int = interior(bg, (0, 1, 2), g=pen._g)
             jxb = jnp.stack([
                 jj[1] * b_int[2] - jj[2] * b_int[1],
                 jj[2] * b_int[0] - jj[0] * b_int[2],
@@ -98,7 +97,7 @@ class Bfield(ModuleBase):
             accumulate(df, "uu", jxb * rho1[None])
         # Alfvén-speed CFL (bfield.f90:1203)
         d1 = pen.dline_1()
-        b_int = interior(bg, pen._crop((0, 1, 2)), g=pen._g)
+        b_int = interior(bg, (0, 1, 2), g=pen._g)
         va2 = sum((b_int[a] * d1[a]) ** 2 for a in range(3)) \
             / self.mu0 * pen.rho1()
         ts.advec2(va2)

@@ -193,8 +193,8 @@ class ChemistryChemkin(ModuleBase):
         from ..ops import stencil as st
         from ..ops.stencil import i as interior
         rest = tuple(a for a in range(3) if a != axis)
-        out = st.der(gh[None], axis, None, wrap=pen._wr(axis), g=pen._g)
-        return interior(out, pen._crop(rest), g=pen._g)[0] * pen._inv(axis)
+        out = st.der(gh[None], axis, None, g=pen._g)
+        return interior(out, rest, g=pen._g)[0] * pen._inv(axis)
 
     @classmethod
     def _gradg(cls, pen, gh):
@@ -207,9 +207,8 @@ class ChemistryChemkin(ModuleBase):
         tot = 0.0
         for axis in range(3):
             rest = tuple(a for a in range(3) if a != axis)
-            out = st.der2(gh[None], axis, None, wrap=pen._wr(axis),
-                          g=pen._g)
-            tot = tot + interior(out, pen._crop(rest),
+            out = st.der2(gh[None], axis, None, g=pen._g)
+            tot = tot + interior(out, rest,
                                  g=pen._g)[0] * pen._inv(axis) ** 2
         return tot
 

@@ -194,17 +194,19 @@ class Forcing(ModuleBase):
 
     def kick_coeffs(self, key, dt, cfg, eos, dtype):
         """Per-step helical-kick coefficients (the random-draw half of
-        addforce, split out so the fused last-substep kernel can apply the
-        kick in-VMEM): returns (k_phys(3), phase, f_re(3), f_im(3), N·dt).
+        addforce): returns (k_phys(3), phase, f_re(3), f_im(3), N·dt).
         duu = N·dt·Re[(f_re + i f_im)·e^{i(k·x+phase)}]."""
         kk_table = jnp.asarray(shell_vectors(self.kf, self.dk), dtype=dtype)
         nk = kk_table.shape[0]
         k_idx, k_phase, k_e = jax.random.split(key, 3)
-        idx = jax.random.randint(k_idx, (), 0, nk)
+        # draws are 32-bit whatever the state dtype, so a float64 run is
+        # forced exactly like the float32 run from the same key
+        idx = jax.random.randint(k_idx, (), 0, nk, dtype=jnp.int32)
         kvec = kk_table[idx]                      # (3,) in integer units
-        phase = jax.random.uniform(k_phase, (), minval=-jnp.pi, maxval=jnp.pi)
+        phase = jax.random.uniform(k_phase, (), jnp.float32, minval=-jnp.pi,
+                                   maxval=jnp.pi).astype(dtype)
         # random direction for e, redrawn to avoid near-parallel with k
-        e = jax.random.normal(k_e, (3,), dtype=kvec.dtype)
+        e = jax.random.normal(k_e, (3,), jnp.float32).astype(dtype)
         e = e / jnp.sqrt(jnp.sum(e * e))
         # Gram-Schmidt: remove component along k
         khat = kvec / jnp.sqrt(jnp.sum(kvec * kvec))

@@ -7,7 +7,7 @@ toward the field-aligned Spitzer flux on a finite timescale τ,
     ∂lnT/∂t −= γ/(cp·T)·(∇·q + q·∇lnρ)
 
 which turns the parabolic Spitzer conduction into a telegraph equation
-with propagation speed c = √(χγ/τ) — the TPU-friendly way to avoid the
+with propagation speed c = √(χγ/τ) — the explicit-stepping way to avoid the
 χT^2.5 timestep collapse in hot coronal loops.  Implemented flavor:
 iheatflux='spitzer' (non_fourier_spitzer :457-700) with the lnfs2=T
 variable choice, saturation-flux limiting, and the ltau_spitzer_va

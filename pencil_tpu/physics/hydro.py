@@ -112,9 +112,6 @@ class Hydro(ModuleBase):
         state["uu"] = uu - (rum / rm)[:, None, None, None]
         return state
 
-    def after_timestep_active(self) -> bool:
-        return self.lremove_mean_momenta
-
     def adjust_df(self, pen, df, ts):
         # runs after every module's rhs (model post-pass): constrain dt by
         # the force as sampled at the END of duu_dt in the reference

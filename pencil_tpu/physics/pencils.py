@@ -1,9 +1,9 @@
-"""Lazy derived-field container — the pencil mechanism, TPU style.
+"""Lazy derived-field container — the pencil mechanism, array style.
 
 The reference strip-mines the RHS one x-line at a time, filling a generated
 ``pencil_case`` struct of derived quantities per (m,n) iteration
 (``src/equ.f90:713-814`` calc_all_pencils; codegen in §2.1 of SURVEY.md).
-On TPU the whole local block is "the pencil": derived fields are memoized
+Here the whole local block is "the pencil": derived fields are memoized
 lazily on first access, the dependency closure the reference computes via
 ``pencil_interdep`` fixed-point iteration (src/register.f90:579-751) falls
 out of Python attribute access order, and XLA's CSE/fusion removes any
@@ -37,7 +37,7 @@ _OTHER_AXES = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 
 class Pencils:
     def __init__(self, fg, grid, reg, cfg, eos=None,
-                 mesh_axis_names=None, mesh_shape=(1, 1, 1), wrap_z=False):
+                 mesh_axis_names=None, mesh_shape=(1, 1, 1)):
         self.fg = fg            # ghosted stack (nc, mx, my, mz)
         self.grid = grid
         self.reg = reg
@@ -51,20 +51,7 @@ class Pencils:
         self.mesh_shape = mesh_shape
         # ghost width: follows GridSpec.nghost (3=6th, 4=8th, 5=10th order)
         self._g = cfg.grid.nghost if cfg is not None else 3
-        # wrap_z: the z axis carries NO ghost zones and is periodic over
-        # its full extent — stencils along z use circular rolls (the fused
-        # kernel's tile layout; avoids a halo'd copy of every tile)
-        self.wrap_z = wrap_z
         self._cache = {}
-
-    def _wr(self, axis):
-        return self.wrap_z and axis == 2
-
-    def _crop(self, axes):
-        """Filter a crop-axis tuple down to the axes that have ghosts."""
-        if not self.wrap_z:
-            return axes
-        return tuple(a for a in axes if a != 2)
 
     # ---- raw derivative helpers (on stacked slices) --------------------
     def _inv(self, axis):
@@ -189,24 +176,20 @@ class Pencils:
     @_memo
     def _gh_only(self, name, axis):
         """Field slab ghosted ONLY along ``axis``: the other ghost axes are
-        cropped BEFORE the stencil pass.  On a fused-kernel tile the ghosted
-        area is ~2× the interior (e.g. 14×70 vs 8×64 at TX=8/TY=64), so
-        post-cropping wastes that fraction of VPU work on every derivative;
-        pre-cropping makes each stencil pass minimal."""
-        return interior(self._gh(name), self._crop(_OTHER_AXES[axis]),
+        cropped BEFORE the stencil pass, so each stencil pass touches only
+        the points it produces."""
+        return interior(self._gh(name), _OTHER_AXES[axis],
                         g=self._g)
 
     @_memo
     def d(self, name, axis):
         """∂(field)/∂x_axis, interior, shape (ncomp, nx, ny, nz)."""
-        out = st.der(self._gh_only(name, axis), axis, None,
-                     wrap=self._wr(axis), g=self._g)
+        out = st.der(self._gh_only(name, axis), axis, None, g=self._g)
         return out * self._inv(axis)
 
     @_memo
     def d2(self, name, axis):
-        out = st.der2(self._gh_only(name, axis), axis, None,
-                      wrap=self._wr(axis), g=self._g)
+        out = st.der2(self._gh_only(name, axis), axis, None, g=self._g)
         out = out * self._inv(axis) ** 2
         if (self.cfg is not None
                 and self.cfg.grid.grid_func[axis] != "uniform"):
@@ -229,8 +212,7 @@ class Pencils:
     def d6_raw(self, name, axis):
         """Plain 6th difference Σc_k f_{i+k} (no Δ scaling) — hyperdiffusion
         'mesh' flavor (reference hyper3-mesh) and upwinding building block."""
-        return st.der6(self._gh_only(name, axis), axis, None,
-                       wrap=self._wr(axis), g=self._g)
+        return st.der6(self._gh_only(name, axis), axis, None, g=self._g)
 
     @_memo
     def d5_raw(self, name, axis):
@@ -243,8 +225,7 @@ class Pencils:
     def _d_partial(self, name, axis):
         """First derivative reducing only ``axis`` (other axes ghosted) —
         shared by the mixed second derivatives."""
-        return st._der_n(self._gh(name), axis, None, 1, 6,
-                         wrap=self._wr(axis), g=self._g)
+        return st._der_n(self._gh(name), axis, None, 1, 6, g=self._g)
 
     @_memo
     def dij(self, name, ax1, ax2):
@@ -260,12 +241,11 @@ class Pencils:
             # one-pass 12-point bidiagonal scheme — the reference default
             # (lbidiagonal_derij, deriv.f90:1376); pointwise metric factors
             # make it exact on stretched grids too (no x'' term in d²/didj)
-            gh = interior(self._gh(name), self._crop(rest), g=self._g)
-            out = st.derij_bidiag(gh, a, b, wrap2=self._wr(b))
+            gh = interior(self._gh(name), rest, g=self._g)
+            out = st.derij_bidiag(gh, a, b)
             return out * self._inv(a) * self._inv(b)
-        out = st._der_n(self._d_partial(name, a), b, None, 1, 6,
-                        wrap=self._wr(b), g=self._g)
-        return interior(out, self._crop(rest),
+        out = st._der_n(self._d_partial(name, a), b, None, 1, 6, g=self._g)
+        return interior(out, rest,
                         g=self._g) * self._inv(a) * self._inv(b)
 
     @_memo
@@ -322,11 +302,10 @@ class Pencils:
                 if j_ == i_:
                     continue
                 rest = tuple(set((0, 1, 2)) - {i_, j_})
-                src = interior(uu_g[j_][None], self._crop(rest),
+                src = interior(uu_g[j_][None], rest,
                                g=self._g)
-                t = st._der_n(src, i_, None, 5, 2,
-                              wrap=self._wr(i_), g=self._g)
-                t = st._der_n(t, j_, None, 1, 6, wrap=self._wr(j_),
+                t = st._der_n(src, i_, None, 5, 2, g=self._g)
+                t = st._der_n(t, j_, None, 1, 6,
                               g=self._g)
                 acc = acc + t[0] * self._inv(i_) ** 5 * self._inv(j_)
             out.append(acc)
@@ -335,7 +314,7 @@ class Pencils:
     @_memo
     def field(self, name):
         """Interior values of a stored field: (ncomp, nx, ny, nz) / squeezed."""
-        arr = interior(self._gh(name), self._crop((0, 1, 2)), g=self._g)
+        arr = interior(self._gh(name), (0, 1, 2), g=self._g)
         return arr[0] if self.reg.slots[name].ncomp == 1 else arr
 
     def ugrad(self, name, upwind=False):
@@ -371,7 +350,7 @@ class Pencils:
                 return kin.flow(self)
             z = jnp.zeros(self.fg.shape[-3:], self.fg.dtype)
             from ..ops.stencil import i as _interior
-            zi = _interior(z[None], self._crop((0, 1, 2)), g=self._g)[0]
+            zi = _interior(z[None], (0, 1, 2), g=self._g)[0]
             return jnp.stack([zi, zi, zi])
         return self.field("uu")
 
@@ -414,8 +393,8 @@ class Pencils:
 
     @_memo
     def sij(self):
-        """Traceless rate-of-strain S_ij: (3, 3, nx, ny, nz).  Built
-        component-wise (no eye-broadcast) so it lowers inside Pallas."""
+        """Traceless rate-of-strain S_ij: (3, 3, nx, ny, nz), built
+        component-wise."""
         uij = self.uij()
         div3 = self.divu() / 3.0
         rows = []
@@ -466,16 +445,15 @@ class Pencils:
         gh = self._gh(name)[comp:comp + 1]
         if self._g == 3 and (self.cfg is None
                              or self.cfg.grid.coords == "cartesian"):
-            gh_c = interior(gh, self._crop(rest), g=self._g)
-            out = st.derij_bidiag(gh_c, a, b, wrap2=self._wr(b))
+            gh_c = interior(gh, rest, g=self._g)
+            out = st.derij_bidiag(gh_c, a, b)
             return (out * self._inv(a) * self._inv(b))[0]
         else:
             key = ("_dp1", name, comp, a)
             if key not in self._cache:
                 self._cache[key] = st._der_n(gh, a, None, 1, 6, g=self._g)
-            out = st._der_n(self._cache[key], b, None, 1, 6,
-                            wrap=self._wr(b), g=self._g)
-        return (interior(out, self._crop(rest), g=self._g)
+            out = st._der_n(self._cache[key], b, None, 1, 6, g=self._g)
+        return (interior(out, rest, g=self._g)
                 * self._inv(a) * self._inv(b))[0]
 
     def _graddiv(self, name):

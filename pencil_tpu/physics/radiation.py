@@ -4,7 +4,7 @@ discrete ray directions, accumulates Q = Σ_dir w·(I − S)·κρ into the
 heating aux ``Qrad``, and pipelines boundary intensities across ranks via
 ``radboundary_*`` — SURVEY.md §2.7).
 
-TPU-native redesign: the reference works in the RELATIVE intensity
+JAX-native redesign: the reference works in the RELATIVE intensity
 Q = I − S, whose along-ray update (Qintrinsic, radiation_ray.f90:780-904)
 is the linear recurrence
 

@@ -8,7 +8,7 @@ the background shear), plus:
     magnetic:  dAx/dt −= S·Ay            (reference daa_dt "+3/2 Ω A_y x̂")
 The x boundary is *shear-periodic*: f(x+Lx, y) = f(x, y − S·Lx·t); the
 ghost-slab y-shift is realized as an exact Fourier shift (periodic y), the
-TPU-native replacement for the reference's 6th-order polynomial
+JAX-native replacement for the reference's 6th-order polynomial
 interpolation across y-neighbor ranks."""
 from __future__ import annotations
 

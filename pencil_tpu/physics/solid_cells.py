@@ -2,7 +2,7 @@
 module (src/solid_cells.f90): cylinders (and spheres) embedded in the flow,
 represented by "mirror"-interpolated ghost points inside the body.
 
-TPU-native design: the geometry is STATIC, so the entire reference decision
+JAX-native design: the geometry is STATIC, so the entire reference decision
 tree (find_solid_cell_boundaries :2498, update_solid_cells :1016,
 close_interpolation :1825 / close_inter_new :1988 with
 find_g_global_closest_gridplane :2173, fp_nearest_grid :459) is evaluated

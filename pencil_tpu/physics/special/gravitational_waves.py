@@ -18,7 +18,7 @@ oscillator ḧ = −k²h + S is advanced EXACTLY over dt
     h(t+dt) = (h − S/ω²)cos ωdt + (g/ω)sin ωdt + S/ω²
     g(t+dt) = −ω(h − S/ω²)sin ωdt + g cos ωdt,  ω = |k|.
 
-The k=0 mode is pinned to zero.  TPU-native: one batched fftn + einsum
+The k=0 mode is pinned to zero.  JAX-native: one batched fftn + einsum
 projection + elementwise exact rotation for ALL modes at once (the
 reference loops mode-by-mode per rank).
 

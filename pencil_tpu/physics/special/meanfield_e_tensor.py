@@ -13,11 +13,11 @@ to dA/dt (meanfield_e_tensor.f90:1226-1443 calc_pencils_special;
 ``lusecoefs`` the raw acoef/bcoef pair is used instead:
 E = acoef·B + bcoef:∇B (f90:1877-1882).
 
-TPU-native design: the tensors are small per-run constants, so they are
+JAX-native design: the tensors are small per-run constants, so they are
 loaded once host-side (HDF5 via h5py, or built analytically for the
 dataset names ``create_emftensors.py`` generates, e.g. ``isotropic``) and
 closed over the jitted step as broadcastable jnp constants — XLA folds
-the contraction into the fused RHS.  The 'none' time interpolation of the
+the contraction into the jitted RHS.  The 'none' time interpolation of the
 reference (emf_interpolate takes the FIRST time plane, f90:2370-2378) is
 the only mode the shipped samples use and the only one implemented.
 """

@@ -11,7 +11,7 @@ advects/diffuses temperature with it (``special_calc_energy``
 :966-1060; ``lsplit_temperature`` evolves the perturbation around the
 conductive profile).
 
-TPU-native: the reference iterates SOR/full-multigrid over the
+JAX-native: the reference iterates SOR/full-multigrid over the
 6th/4th-order discrete operator to tolerance 1e-15 (solve_highorder
 :630-782).  Under the antisymmetric wall ghosts the SAME discrete
 stencils diagonalize in the DST-I (sine) basis, so we solve the exact

@@ -14,7 +14,7 @@ with A(r) = r²Ω²(r) · 8.5e-2 · cs0 · sqrt(α) (turbpotential.f90:170-188)
 and du/dt −= ∇Φ (f90:748-751).  Expired modes (age > lifetime) are
 replaced by fresh draws (f90:414-455).
 
-TPU-native design: the mode table is a (nmode_max,)-vector module state
+JAX-native design: the mode table is a (nmode_max,)-vector module state
 (Model ``mstate`` channel), replaced data-parallel with ``jnp.where``
 from ``jax.random`` draws — no host round trip; the potential is rebuilt
 once per full step (the reference rebuilds per substep in

@@ -46,7 +46,7 @@ def weno_div_flux_3d(pen, name):
             continue
         term = weno5_div_flux(qg, uug[a], a, pen._inv(a), g=pen._g)
         rest = tuple(set((0, 1, 2)) - {a})
-        out = out + interior(term[None], pen._crop(rest), g=pen._g)[0]
+        out = out + interior(term[None], rest, g=pen._g)[0]
     pen._cache[key] = out
     return out
 

@@ -50,7 +50,7 @@ class Viscosity(ModuleBase):
             else:
                 sij = pen.sij()
                 glnrho = pen.glnrho()
-                # S·∇lnρ without einsum (keeps it Pallas-lowerable)
+                # S·∇lnρ
                 sglnrho = jnp.stack([
                     sum(sij[a, b] * glnrho[b] for b in range(3))
                     for a in range(3)
@@ -122,7 +122,7 @@ class Viscosity(ModuleBase):
             chem = pen.cfg.module("chemistry")
             nugh = chem.mixture_nu_gh(pen)
             from ..ops.stencil import i as interior
-            nu = interior(nugh[None], pen._crop((0, 1, 2)), g=pen._g)[0]
+            nu = interior(nugh[None], (0, 1, 2), g=pen._g)[0]
             gradnu = jnp.stack([chem._dg(pen, nugh, a) for a in range(3)])
             sij = pen.sij()
             glnrho = pen.glnrho()
@@ -234,5 +234,3 @@ class Viscosity(ModuleBase):
             state["uu"] = diffuse_fft(state["uu"], cfg.grid, self.nu, dt)
         return state
 
-    def after_timestep_active(self) -> bool:
-        return self.limplicit_viscosity and self.nu > 0.0

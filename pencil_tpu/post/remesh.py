@@ -1,7 +1,7 @@
 """Offline regridding (reference ``remesh/`` tool: change resolution and/or
 processor layout between runs — SURVEY.md §2.12).
 
-TPU-native: resolution change by spectral resampling in periodic
+JAX-native: resolution change by spectral resampling in periodic
 directions (exact for resolved modes) and linear interpolation in
 non-periodic ones; the "processor layout" half of the reference tool is
 moot — snapshots are a single logical array and re-sharding happens at

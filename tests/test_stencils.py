@@ -171,7 +171,7 @@ def test_model_runs_at_10th_order():
                             Magnetic, Model, TimeSpec, Viscosity)
     cfg = Config(
         grid=GridSpec(nx=16, ny=16, nz=16, nghost=5),
-        time=TimeSpec(itorder=3), fused=False,
+        time=TimeSpec(itorder=3),
         modules=(EosIdealGas(gamma=1.0001),
                  Density(init="sinwave-z", ampl=0.05),
                  Hydro(init="gaussian-noise", ampl=1e-2),
